@@ -1,6 +1,6 @@
-"""er3t_tpu — a TPU-native 3D Monte Carlo radiative transfer framework.
+"""er3t_tpu — a JAX 3D Monte Carlo radiative transfer framework (GPU).
 
-Capabilities of EaR3T (hong-chen/er3t) with an in-framework JAX/Pallas photon
+Capabilities of EaR3T (hong-chen/er3t) with an in-framework JAX photon
 transport engine replacing the external MCARaTS / libRadtran solvers.
 """
 

@@ -8,7 +8,7 @@ Capability parity with the reference's LUT machinery:
 * ``func_ref_vs_cot`` (reference: er3t/rtm/mca/util.py:19-415) — IPA
   reflectance-vs-COT curve + two-stream analytic companion + inversion.
 
-TPU-native design: where the reference launches one external-solver process
+Design: where the reference launches one external-solver process
 per LUT node (uvspec over an mp.Pool), here *all nodes are columns of a
 single IPA scene* — one transport run computes the whole table.
 """

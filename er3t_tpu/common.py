@@ -1,12 +1,13 @@
 """Global configuration for er3t_tpu.
 
-TPU-native re-design of the reference's ``er3t/common.py`` (see
+Re-design of the reference's ``er3t/common.py`` (see
 /root/reference/er3t/common.py:7-55): module-level dtypes, default run
-parameters, data directories, capability flags, and a citation registry.
+parameters, data directories, capability flags, the compile-cache location
+and a citation registry.
 
-Unlike the reference we default to float32 compute everywhere on device
-(TPU VPU native), bfloat16 only where precision allows, and we do not
-depend on external solver binaries: the solver is in-framework.
+Unlike the reference we default to float32 compute everywhere on device,
+and we do not depend on external solver binaries: the solver is
+in-framework.
 """
 
 from __future__ import annotations
@@ -35,6 +36,26 @@ fname_mie_cdf = os.environ.get('ER3T_MIE_CDF', os.path.join(fdir_data, 'wc.sol.m
 
 has_abs_16g = os.path.exists(fname_abs_16g_h5)
 has_mie_cdf = os.path.exists(fname_mie_cdf)
+
+# persistent XLA compile cache when JAX_COMPILATION_CACHE_DIR is unset
+# (listed in .gitignore)
+fdir_jax_cache = os.path.join(os.path.dirname(fdir_er3t), '.jax_cache')
+
+
+def setup_compile_cache() -> str:
+    """Point JAX's persistent compile cache at a fixed directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is honoured as JAX itself reads
+    it, and no other directory is set.  Otherwise the cache lives in
+    ``<checkout>/.jax_cache``.  Call before the first compilation; returns
+    the directory in use.
+    """
+    env = os.environ.get('JAX_COMPILATION_CACHE_DIR')
+    if env:
+        return env
+    import jax
+    jax.config.update('jax_compilation_cache_dir', fdir_jax_cache)
+    return fdir_jax_cache
 
 # ----------------------------------------------------------------------------
 # default run parameters (reference: er3t/common.py:34-55)

@@ -5,7 +5,7 @@ The reference replicates the full 3D field into every solver process
 there).  Here the voxel grid is split into x-slabs across the mesh's 'x'
 axis; each device transports photons only while they are inside its slab.
 Flights clamp at slab faces (er3t_tpu.rtm.mc_flight), the lane freezes, and
-a migration exchange moves it to the neighbor over ICI.
+a migration exchange moves it to the neighbor over NVLink.
 
 Migration is a *capacity-backpressured prefix swap*: each device stably
 partitions its lanes (dead first, then outgoing, then the rest), exchanges
@@ -41,6 +41,7 @@ reference runs both radiance and flux workloads under its MPI fan-out
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ from jax.sharding import PartitionSpec as P
 from ..rtm.mc import SolverConfig, Tallies
 from ..rtm.mc_flight import (FlightCarry, SlabSpec, lane_matrix,
                              lanes_from_matrix, make_flight_kernel)
+from ..rtm.scene import SceneArrays
 
 __all__ = ['transport_decomp']
 
@@ -68,6 +70,9 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int, mesh,
     targets — per-column flux tallies partition with the slabs; the
     domain-average flux takes one psum.  Returns global tallies (image /
     per-column flux gathered across slabs).
+
+    The photon count, seed and round cap are traced inputs: one compiled
+    executable serves every chunk of a given (mesh, scene statics, config).
     """
     n_dev = mesh.shape['x']
     if 'b' not in mesh.shape:
@@ -80,13 +85,9 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int, mesh,
     if st.nx % n_dev:
         raise ValueError('nx must divide the decomposition axis')
     radiance = cfg.target == 'radiance'
-    camera = cfg.sensor_type == 'camera'
-    nx_loc = st.nx // n_dev
-    st_loc = dataclasses.replace(st, nx=nx_loc)
-    slab = SlabSpec(nx_global=st.nx, nx_local=nx_loc)
     B = cfg.batch
     # migration packs int lane state (nscat, ix0, iy0) into float32 rows —
-    # exact only below 2^24 (advisor r3)
+    # exact only below 2^24
     assert st.nx * st.ny < 2 ** 24 and cfg.n_scat_max < 2 ** 24, \
         'photon migration packs int lane state into float32 (exact < 2^24)'
     M = window or max(B // 4, 1)
@@ -97,6 +98,33 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int, mesh,
     n_per = int(n_photon) // n_dev
     if max_rounds is None:
         max_rounds = int(np.ceil(n_per / B + 1) * max(1600 // k_super, 8)) + 32
+    n_per = n_per // mesh.shape.get('b', 1)
+
+    scalar_flux = (not radiance and cfg.flux_per_column
+                   and cfg.flux_kcross > 0 and flux_w is not None)
+    scalar_rad = radiance and rad_w is not None
+    fw = jnp.asarray(flux_w, _F) if flux_w is not None \
+        else jnp.zeros((st.nz + 1, st.ng), _F)    # placeholder (unused)
+    rw = jnp.asarray(rad_w, _F) if rad_w is not None \
+        else jnp.zeros((st.ng,), _F)              # placeholder (unused)
+    fn = _decomp_fn(mesh, st, cfg, k_super, M, spawn_reserve, scalar_flux,
+                    scalar_rad)
+    return fn(scene, fw, rw, jnp.asarray(n_per, jnp.int32),
+              jnp.asarray(max_rounds, jnp.int32),
+              jnp.asarray(int(seed), jnp.int32))
+
+
+@functools.lru_cache(maxsize=64)
+def _decomp_fn(mesh, st, cfg, k_super, M, spawn_reserve, scalar_flux,
+               scalar_rad):
+    """One jitted shard_map executable per (mesh, statics, config)."""
+    n_dev = mesh.shape['x']
+    radiance = cfg.target == 'radiance'
+    camera = cfg.sensor_type == 'camera'
+    nx_loc = st.nx // n_dev
+    st_loc = dataclasses.replace(st, nx=nx_loc)
+    slab = SlabSpec(nx_global=st.nx, nx_local=nx_loc)
+    B = cfg.batch
 
     ring_r = [(i, (i + 1) % n_dev) for i in range(n_dev)]
     ring_l = [(i, (i - 1) % n_dev) for i in range(n_dev)]
@@ -104,22 +132,15 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int, mesh,
     # shard 3D fields along x, replicate the rest
     specs3d = {'ext3d', 'ssa3d', 'apf3d', 'cf3d'}
     sfc_sharded = st.nxs == st.nx  # per-column surface maps follow the slabs
-    in_specs = type(scene)(*[
+    in_specs = SceneArrays(*[
         P('x') if (f in specs3d or (sfc_sharded and f in ('jsfc', 'psfc')))
         else P()
-        for f in scene._fields])
+        for f in SceneArrays._fields])
     st_loc = dataclasses.replace(st_loc, nxs=(st.nxs // n_dev if sfc_sharded else st.nxs))
 
     n_b = mesh.shape.get('b', 1)
-    n_per = n_per // n_b
 
-    scalar_flux = (not radiance and cfg.flux_per_column
-                   and cfg.flux_kcross > 0 and flux_w is not None)
-    fw = jnp.asarray(flux_w, _F) if flux_w is not None else None
-    scalar_rad = radiance and rad_w is not None
-    rw = jnp.asarray(rad_w, _F) if rad_w is not None else None
-
-    def worker(scene_loc, fw_loc, rw_loc):
+    def worker(scene_loc, fw_loc, rw_loc, n_per, max_rounds, seed):
         me = jax.lax.axis_index('x')
         bi = jax.lax.axis_index('b') if n_b > 1 else 0
         x_off = (me * nx_loc * st.dx).astype(_F)
@@ -272,11 +293,6 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int, mesh,
     out_specs = Tallies(rad=P() if radiance else P('x'), flux=flux_spec,
                         n_launched=P(), n_steps=P(), rad_plen=P(),
                         lane_iters=P(), absorbed=P())
-    fn = jax.jit(jax.shard_map(worker, mesh=mesh,
-                               in_specs=(in_specs, P(), P()),
-                               out_specs=out_specs, check_vma=False))
-    if fw is None:
-        fw = jnp.zeros((st.nz + 1, st.ng), _F)   # placeholder (unused)
-    if rw is None:
-        rw = jnp.zeros((st.ng,), _F)             # placeholder (unused)
-    return fn(scene, fw, rw)
+    return jax.jit(jax.shard_map(
+        worker, mesh=mesh, in_specs=(in_specs, P(), P(), P(), P(), P()),
+        out_specs=out_specs, check_vma=False))

@@ -1,17 +1,20 @@
 """Device-mesh construction for multi-chip runs.
 
 The reference's only scaling mechanism is process fan-out over CPUs / MPI
-ranks (er3t/rtm/mca/mca_run.py:101-181).  The TPU framework scales over a
+ranks (er3t/rtm/mca/mca_run.py:101-181).  This framework scales over a
 ``jax.sharding.Mesh`` with two axes:
 
 * ``'x'``  — spatial domain decomposition: the 3D optical-property grid is
-  split into x-slabs, photons migrate between neighbor devices (ICI);
+  split into x-slabs, photons migrate between neighbor devices (NVLink
+  between the cards of one host);
 * ``'b'``  — photon parallelism: independent photon streams over replicated
   scenes, tallies psum-reduced.
 
 Multi-host: initialize with ``jax.distributed.initialize()`` before building
-the mesh; the same code then spans hosts (slabs ride ICI, the final tally
-reduction crosses DCN once).
+the mesh; the same code then spans hosts (slab migration stays on NVLink
+within a host where neighbors share one, the final tally reduction crosses
+the network once).  The cards of one host are joined all to all, so the
+mesh follows device order: slab ``i`` lives on ``jax.devices()[i]``.
 """
 
 from __future__ import annotations

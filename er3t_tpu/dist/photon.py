@@ -1,6 +1,6 @@
 """Photon-parallel transport: replicated scene, sharded photon streams.
 
-The direct TPU counterpart of the reference's embarrassingly-parallel run
+The direct counterpart of the reference's embarrassingly-parallel run
 fan-out (Nrun x Ng MCARaTS processes over CPUs, mcarats.py:192-196 +
 mca_run.py:144-159): every device transports an independent photon stream
 through a replicated scene; tallies are reduced with a single ``psum`` over

@@ -3,7 +3,7 @@
 Builds ``native/mc_ref.cpp`` on demand with g++ (no pybind11 dependency —
 plain C ABI + ctypes).  The native solver plays the role MCARaTS plays for
 the reference toolbox: an independent implementation to cross-validate the
-TPU transport kernels against (see tests/test_cross_native.py).
+JAX transport kernels against (see tests/test_cross_native.py).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def mc_ref_run(scene, st, albedo, sza_deg, saa_deg, n_photon, seed=1,
     """Run the native reference solver on a (SceneArrays, SceneStatic) pair.
 
     Returns (rad (nx, ny, ng), flux (nz+1, 3, ng), n_photon) in the same raw
-    photon-weight units as the TPU kernels' tallies.
+    photon-weight units as the JAX kernels' tallies.
     """
     lib = _load()
     f64 = lambda a: np.ascontiguousarray(np.asarray(a), dtype=np.float64)

@@ -2,7 +2,7 @@
 
 Physics parity with the reference's ``pha_hg``
 (/root/reference/er3t/pre/pha/pha_hg.py:10-66); the sampler is the standard
-closed-form inverse CDF, which the TPU transport kernel uses directly instead
+closed-form inverse CDF, which the transport kernel uses directly instead
 of a tabulated lookup when a scene is HG-only.
 """
 

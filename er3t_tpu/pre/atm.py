@@ -1,6 +1,6 @@
 """1D atmospheric profiles.
 
-TPU-native re-design of the reference's ``atm_atmmod``
+Re-design of the reference's ``atm_atmmod``
 (/root/reference/er3t/pre/atm/atm_atmmod.py:17-240): build level/layer profiles
 of pressure, temperature and gas number densities on a user altitude grid.
 

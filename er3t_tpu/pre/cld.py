@@ -13,7 +13,7 @@ Capability parity with the reference's ``er3t.pre.cld`` family:
   (cld_sat.py:18-285)
 
 All builders return a :class:`Cloud3D`: a plain container of numpy arrays in
-(Nx, Ny, Nz) layout, the orientation the TPU scene builder consumes.
+(Nx, Ny, Nz) layout, the orientation the scene builder consumes.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Phase-function objects and TPU sampling tables.
+"""Phase-function objects and the transport kernels' sampling tables.
 
 Capability parity with the reference's ``pha_mie_wc`` and ``pha_hg``
 (/root/reference/er3t/pre/pha/pha_mie.py:72-228, pha_hg.py:10-66), re-designed
@@ -193,9 +193,7 @@ def build_phase_table(pha_obj=None, n_u: int = 2048, n_m: int = 2048,
     uniform-mu bins for the (bin-averaged) evaluation rows.  2048/2048
     resolves the post-truncation Mie structure (rainbow/glory widths are
     1-2 deg >= the 0.06-deg worst-case bin) and is validated by the
-    cross-solver and truncation closure tests; it also sets the MXU
-    one-hot contraction size of the Pallas phase-pair kernel
-    (rtm/pallas_phase.py — cost is linear in n_u + 2*n_m).
+    cross-solver and truncation closure tests.
 
     ``forward_trunc_deg`` enables delta-truncation: scattering within that
     angle of forward is treated as unscattered.  The returned ``trunc_f``

@@ -1,4 +1,4 @@
-"""TPU-native Monte Carlo photon transport.
+"""Event-marching Monte Carlo photon transport (the plain flux reference).
 
 This module is the in-framework replacement for the external MCARaTS Fortran
 solver that the reference drives through process fan-out
@@ -18,7 +18,7 @@ solver that the reference drives through process fan-out
 * **Spectrally-correlated g-points.** One trajectory carries all Ng
   correlated-k weights: gas absorption is accumulated as a per-layer
   pathlength vector S (one-hot FMA per step) and materialized as
-  exp(-S @ kabs) — an (B,Nz)x(Nz,Ng) MXU matmul — only at tally events.
+  exp(-S @ kabs) — an (B,Nz)x(Nz,Ng) matmul — only at tally events.
   Each trajectory therefore yields Ng correlated spectral samples, where the
   reference launches Ng independent solver processes (mcarats.py:159-196).
   Per-g estimates remain unbiased.  Set ``ng=1`` slices for the reference's
@@ -48,6 +48,8 @@ from .scene import SceneArrays, SceneStatic
 __all__ = ['SolverConfig', 'Tallies', 'transport', 'run_transport']
 
 _F = jnp.float32
+# optical-depth contractions run at full f32 (Hopper's default is TF32)
+_HI = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,15 +93,6 @@ class SolverConfig:
     #                                     mca_inp.py:148-152)
     sensor_type: str = 'satellite'     # 'satellite' | 'camera' (ground-based
     #                                     upward fisheye, MCARaTS Rad_mrkind=1)
-    use_pallas: bool = False           # route the two per-event phase-LUT
-    #                                     lookups through the fused Pallas
-    #                                     MXU kernel (rtm/pallas_phase.py):
-    #                                     one-hot row-block selection +
-    #                                     128-lane shuffle, two-plane bf16
-    #                                     tables (~1e-5 value error).  Works
-    #                                     with every target/sensor and with
-    #                                     tile majorants (interpret mode off
-    #                                     TPU)
     cf_dtau: float = 0.0               # >0: collision forcing for flights
     #                                     with majorant OD below this
     #                                     threshold (MCARaTS Rad_cf_*,
@@ -164,7 +157,7 @@ class SolverConfig:
     #                                     measured neutral for satellite
     #                                     radiance (slant drift to the first
     #                                     event re-randomizes the deposit
-    #                                     pixel — BENCH_NOTES.md)
+    #                                     pixel)
     launch_coherent: bool = False      # flight kernel: stratified launch with
     #                                     a LINEAR index->cell map (cell =
     #                                     (idx+offset) mod ncell) instead of
@@ -175,10 +168,8 @@ class SolverConfig:
     #                                     in adjacent columns, so the voxel/
     #                                     majorant/surface gathers and image
     #                                     deposits of neighboring lanes hit
-    #                                     neighboring HBM rows (measured 3.7x
-    #                                     cheaper gathers for clustered
-    #                                     indices, BENCH_NOTES round-3 cost
-    #                                     model).  Overrides qmc_launch's map.
+    #                                     neighboring rows.  Overrides
+    #                                     qmc_launch's map.
     cam_importance_sigma: float = 0.0  # camera radiance only: >0 launches
     #                                     photons from a 50/50 mixture of
     #                                     uniform and a wrapped Gaussian of
@@ -218,8 +209,7 @@ class SolverConfig:
     #                                     re-pairs photons with future RNG
     #                                     draws (different realization, same
     #                                     distribution — unbiased)
-    ablate: str = ''                   # profiling-only (scripts/tpu_profile_
-    #                                     ablate.py): comma-joined subset of
+    ablate: str = ''                   # profiling-only: comma-joined subset of
     #                                     {'vox','phase','deposit','firstdep'}
     #                                     replaces that gather/scatter with a
     #                                     constant (firstdep: drops first-
@@ -322,8 +312,8 @@ def transport(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     ext3d_flat = scene.ext3d.reshape(-1)
     cum3d_flat = cum3d.reshape(-1)
 
-    # packed per-layer and per-voxel tables: gathers cost ~per-row on TPU,
-    # so one wide row-fetch replaces several scalar fetches; columns 4..4+Na
+    # packed per-layer and per-voxel tables: one wide row-fetch replaces
+    # several scalar fetches; columns 4..4+Na
     # carry the per-constituent aerosol extinctions
     lay_tab = jnp.concatenate(
         [jnp.stack([scene.z_lev[:-1], scene.z_lev[1:], scene.sig_maj,
@@ -378,7 +368,8 @@ def transport(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
 
     def w_full(wsc, S):
         """(B, Ng) physical weights: scattering factor x gas transmission."""
-        labs = -jnp.dot(S, scene.kabs, preferred_element_type=_F)
+        labs = -jnp.dot(S, scene.kabs, precision=_HI,
+                        preferred_element_type=_F)
         return wsc[:, None] * jnp.exp(labs)
 
     def sensor_trans(x, y, z, l, ix, iy, S):
@@ -412,7 +403,8 @@ def transport(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 ixm, iym = col_index(xm % lx, ym % ly, ix, iy)
                 idx = (ixm * st.ny + iym) * st.nz3 + k3
                 tau3 = tau3 + jnp.where(seg > 0, jnp.take(ext3d_flat, idx) * seg, 0.0)
-        labs = -jnp.dot(S, scene.kabs, preferred_element_type=_F)
+        labs = -jnp.dot(S, scene.kabs, precision=_HI,
+                        preferred_element_type=_F)
         tau_tot = (tau_sig + tau3)[:, None] / mu_s + tau_abs / mu_s
         return jnp.exp(labs - tau_tot)
 
@@ -594,9 +586,8 @@ def transport(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             fiy = iy if cfg.flux_per_column else jnp.zeros_like(iy)
             fidx = ((fix * nyf + fiy) * nlev + lev) * 3 + ch
             wf = w_full(wsc, S)
-            # tallies are packed 8 logical rows per physical 128-lane row
-            # (ng=16 would otherwise pad 8x on TPU -> OOM for per-column
-            # tallies on large scenes); row scatter stays row scatter
+            # tallies are packed 8 logical rows per physical 8*Ng-wide
+            # row; row scatter stays row scatter
             sub = jax.nn.one_hot(fidx % 8, 8, dtype=_F)
             upd = (sub[:, :, None]
                    * jnp.where(crossed[:, None], wf, 0.0)[:, None, :])

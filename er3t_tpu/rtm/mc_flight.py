@@ -1,27 +1,24 @@
 """Flight-based radiance transport kernel (the hot path).
 
-TPU performance notes driving this design (measured on v5e):
+Design:
 
-* Random gathers cost ~6 ns/row regardless of row width — the dominant cost
-  of any MC kernel on TPU.  This kernel performs ~4 gathers per iteration:
-  a per-tile majorant column, one packed voxel fetch (ext, ssa, phase-row,
-  column-cum-ext in one row), and two nearest-bin phase-LUT fetches at
-  scattering events — measured ~80% of the gather-throughput roof.
+* Each iteration does a few random gathers: a per-tile majorant column, one
+  packed voxel fetch (ext, ssa, phase-row, column-cum-ext in one row), and
+  two nearest-bin phase-LUT fetches at scattering events.
 * Layer-indexed 1D lookups are eliminated: free paths through the layered
   majorant are inverted analytically with (B, Nz) *elementwise* cumulative
   sums (a whole multi-layer flight per iteration, vs one layer/event per
   iteration in the marching kernel) — clear-sky photons complete in ~3
   iterations instead of ~60.
 * Per-g gas absorption and the vertical attenuation toward the sensor are
-  evaluated in a single (B, 2 Nz) @ (2 Nz, 2 Ng+2) matmul — K and N both pad
-  to the MXU's 128 anyway, so the sensor column block rides for free.
+  evaluated in a single (2 Ng+2, 2 Nz) @ (2 Nz, B) matmul.
 * Radiance is accumulated by local estimation at every scattering and
   surface event (cf. MCARaTS Wld_mtarget=2); there are no per-crossing
   tallies in radiance mode, which is what makes the flight formulation
   efficient.
 * Flux targets tally EVERY level crossing of an analytic flight in one
   iteration: per-crossing per-g weights form a (B, Nz+1, Ng) cumulative-
-  absorption tensor contracted onto the tally with an MXU matmul (or a
+  absorption tensor contracted onto the tally with a matmul (or a
   scatter-add for per-column tallies) — ~Nz fewer iterations than the
   marching kernel.
 
@@ -51,9 +48,15 @@ from .mc import SolverConfig, Tallies, _sensor_dir
 from .scene import SceneArrays, SceneStatic
 
 __all__ = ['transport_flight', 'run_transport_flight', 'make_flight_kernel',
-           'FlightCarry', 'SlabSpec']
+           'FlightCarry', 'SlabSpec', 'phase_lookup_eval',
+           'phase_lookup_sample']
 
 _F = jnp.float32
+# Every physics contraction (one-hot selections, optical-depth sums, spectral
+# weights) runs at full f32: the default on Hopper is TF32, whose ~10-bit
+# mantissa would put ~1e-3 relative error on selected level heights and
+# optical depths.  tests/test_precision.py walks the jaxpr to enforce it.
+_HI = jax.lax.Precision.HIGHEST
 
 def _coprime_stride(n: int) -> int:
     """Largest stride <= min(0.618 n, (2^32-1)//n) coprime to ``n``.
@@ -83,10 +86,8 @@ class FlightCarry(NamedTuple):
     uy: jnp.ndarray
     uz: jnp.ndarray
     wsc: jnp.ndarray
-    labs: jnp.ndarray       # (Ng+1, B): per-g log-transmission + best case.
-    #                         B lives in the LANE dim framework-wide: (d, B)
-    #                         arrays waste no lanes, while (B, d) pads d to
-    #                         128 (6-8x the HBM traffic at fusion boundaries)
+    labs: jnp.ndarray       # (Ng+1, B): per-g log-transmission + best case
+    #                         (the batch is the minor axis framework-wide)
     tau: jnp.ndarray
     nscat: jnp.ndarray
     alive: jnp.ndarray
@@ -104,6 +105,29 @@ class FlightCarry(NamedTuple):
     #                         Flx_mhrt role) — (1, 1) when unused
 
 
+def phase_lookup_eval(pt_p, apf, mu, first):
+    """P(mu) for the local estimate: nearest uniform-mu bin of eval row
+    ``apf`` of the (2 Npf, Nm) table, or of its TMS row ``apf + Npf`` where
+    ``first`` (the photon has never scattered or reflected — exact
+    Nakajima-Tanaka single scattering under delta-truncation, see pre/pha.py
+    PhaseTable.p_tms).  Row 0 is Rayleigh, evaluated analytically.  One
+    gather per lane from a table of a few tens of KB."""
+    n_m = pt_p.shape[1]
+    row = apf + jnp.where(first, pt_p.shape[0] // 2, 0)
+    i0 = jnp.clip((((mu + 1.0) * 0.5 * (n_m - 1)) + 0.5).astype(jnp.int32),
+                  0, n_m - 1)
+    p_tab = jnp.take(pt_p.reshape(-1), row * n_m + i0)
+    return jnp.where(apf == 0, 0.75 * (1.0 + mu * mu), p_tab)
+
+
+def phase_lookup_sample(pt_mu, apf, u):
+    """Scattering cosine for a uniform deviate ``u``: nearest of the
+    (Npf, Nu) inverse-CDF quantiles of row ``apf``."""
+    n_u = pt_mu.shape[1]
+    i0 = jnp.clip((u * (n_u - 1) + 0.5).astype(jnp.int32), 0, n_u - 1)
+    return jnp.take(pt_mu.reshape(-1), apf * n_u + i0)
+
+
 def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                        n_photon: int, key: jax.Array,
                        slab: SlabSpec | None = None, x_off=None,
@@ -118,15 +142,13 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     ``flux_w``: optional (Nz+1, Ng) spectral weights (the reference's
     sol_fac*solar*weight*slit/norm factor chain, mca_out.py:311-328).  When
     given with per-column flux targets, crossings are contracted over g
-    IN-KERNEL and tallied as scalars into a flat tally — a 5x cheaper
-    scatter on TPU than 128-lane packed rows (scripts/tpu_scatter_bench.py),
-    exactly equal to the post-hoc contraction because the factor chain is
-    linear in the per-g tallies.
+    IN-KERNEL and tallied as scalars into a flat tally (one scalar per
+    crossing instead of an (Ng,)-wide row), exactly equal to the post-hoc
+    contraction because the factor chain is linear in the per-g tallies.
 
     ``rad_w``: optional (Ng,) spectral factors for radiance targets — the
     same exactness argument: image deposits are contracted over g in-kernel
-    and scattered as SCALARS ((Ng,)-row image scatters measure ~2x the
-    scalar cost in-loop, scripts/tpu_gather_probe2.py).  The returned image
+    and scattered as SCALARS instead of (Ng,)-wide rows.  The returned image
     then has a singleton g axis holding the factor-contracted physical
     tally.  Incompatible with ``cfg.pathlength`` (the pathlength ratio uses
     the k-distribution weights, a different contraction).
@@ -151,7 +173,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     # flux targets: tally every level crossing of each analytic flight in
     # one step (the marching kernel in rtm.mc advances one crossing per
     # iteration).  Per-crossing per-g weights form a (B, Nz+1, Ng) tensor
-    # contracted onto the tally with an MXU matmul.
+    # contracted onto the tally with a matmul.
     nxf, nyf = (st.nx, st.ny) if (not radiance and cfg.flux_per_column) \
         else (1, 1)
     nlev = nz + 1
@@ -246,19 +268,6 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         [jnp.concatenate([kext, jnp.zeros_like(sens_cols)], axis=1),
          jnp.concatenate([jnp.zeros_like(kext), sens_cols], axis=1)], axis=0)
 
-    n_u = scene.pt_mu.shape[1]
-    n_m = scene.pt_p.shape[1]
-    n_pf = scene.pt_mu.shape[0]
-    pt_mu_flat = scene.pt_mu.reshape(-1)
-    pt_p_flat = scene.pt_p.reshape(-1)
-    # Pallas phase-pair route: the two per-event LUT gathers become MXU
-    # one-hot selections + a 128-lane shuffle (er3t_tpu.rtm.pallas_phase);
-    # tables are packed once per kernel build
-    use_ppair = cfg.use_pallas
-    if use_ppair:
-        from .pallas_phase import pack_phase_tables
-        ph_packed, ph_meta = pack_phase_tables(scene.pt_p, scene.pt_mu)
-
     sin0 = jnp.sqrt(jnp.maximum(1.0 - scene.mu0 ** 2, 0.0))
     u0x = sin0 * jnp.cos(scene.phi0)
     u0y = sin0 * jnp.sin(scene.phi0)
@@ -336,28 +345,18 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             # linear index->cell map: same per-block bijection (any bijection
             # preserves the stratification guarantee), but consecutive lanes
             # spawn in ADJACENT columns — their voxel/majorant/surface
-            # gathers and image deposits then hit neighboring HBM rows
+            # gathers and image deposits then hit neighboring rows
             q_stride = jnp.uint32(1)
 
-    def phase_eval(apf, mu, first=None):
-        """P(mu) local-estimate row; ``first`` (the photon has never
-        scattered or reflected — the ``direct`` flag, same criterion as
-        rtm.mc) selects the TMS half of the table — exact Nakajima-Tanaka
-        single scattering under delta-truncation (see pre/pha.py
-        PhaseTable.p_tms)."""
+    def phase_eval(apf, mu, first):
         if 'phase' in ablate:
             return 0.75 * (1.0 + mu * mu)
-        row = apf if first is None else apf + jnp.where(first, n_pf, 0)
-        i0 = jnp.clip((((mu + 1.0) * 0.5 * (n_m - 1)) + 0.5).astype(jnp.int32),
-                      0, n_m - 1)
-        p_tab = jnp.take(pt_p_flat, row * n_m + i0)
-        return jnp.where(apf == 0, 0.75 * (1.0 + mu * mu), p_tab)
+        return phase_lookup_eval(scene.pt_p, apf, mu, first)
 
     def phase_sample(apf, u):
         if 'phase' in ablate:
             return u * 2.0 - 1.0
-        i0 = jnp.clip((u * (n_u - 1) + 0.5).astype(jnp.int32), 0, n_u - 1)
-        return jnp.take(pt_mu_flat, apf * n_u + i0)
+        return phase_lookup_sample(scene.pt_mu, apf, u)
 
     def rotate(ux, uy, uz, mu, psi):
         sin_t = jnp.sqrt(jnp.maximum(1.0 - mu * mu, 0.0))
@@ -375,8 +374,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
 
     def body(c: FlightCarry) -> FlightCarry:
         k_iter = jax.random.fold_in(key, c.step)
-        # (14, B): the deviate index in the sublane dim, B in the lane dim
-        # (a (B, 14) array would pad 14 -> 128 lanes, 9x the HBM traffic)
+        # (14, B): the deviate index major, the batch minor
         u = jax.random.uniform(k_iter, (14, B), dtype=_F,
                                minval=1e-7, maxval=1.0 - 1e-7)
 
@@ -695,9 +693,8 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             # A flight's level crossings are contiguous in level, so the k-th
             # crossing level is an affine function of the first.  Clamping
             # the flight at its kx-th crossing bounds the per-column tally
-            # scatter to kx rows/lane/iteration instead of Nz+1 — the
-            # 480x480 per-column scatter was ~200x slower than the radiance
-            # path (BENCH_NOTES round 1).  Exact by memorylessness: tau is
+            # scatter to kx rows/lane/iteration instead of Nz+1.
+            # Exact by memorylessness: tau is
             # resampled every iteration, like tile and slab clamps.
             k_iota = jax.lax.broadcasted_iota(jnp.int32, (B, kx), 1)
             lev_k = jnp.where(going_up[:, None], n_le[:, None] + k_iota,
@@ -707,8 +704,8 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             oh_k = (jax.lax.broadcasted_iota(jnp.int32, (B, kx, nlev), 2)
                     == lev_c[:, :, None]).astype(_F)
             s_cross_all = (z_lev[None, :] - z[:, None]) * inv_uz[:, None]
-            s_k = jnp.einsum('bkl,bl->bk', oh_k, s_cross_all)
-            z_k = jnp.einsum('bkl,l->bk', oh_k, z_lev)
+            s_k = jnp.einsum('bkl,bl->bk', oh_k, s_cross_all, precision=_HI)
+            z_k = jnp.einsum('bkl,l->bk', oh_k, z_lev, precision=_HI)
             # the level-0 crossing of a surface-reflected flight sits at
             # s_k == 0 — admit it alongside the strictly-positive ones
             pos_ok = (s_k > 0.0) | (up0k[:, None] & (k_iota == 0))
@@ -740,8 +737,8 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         absorbed = c.absorbed
         term = active & ~collided & ~clamped & ~tclamp & ~zclamp
         if not radiance:
-            # flux tallies are scatter/MXU-bound; one transpose each into
-            # the (B, .) frame their contractions want is in the noise
+            # one transpose each into the (B, .) frame the flux
+            # contractions want
             trav_b = trav.T
             seg_b = seg.T
             labs_bg = labs[:ng].T
@@ -755,13 +752,13 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 & ((s_k < s_star[:, None]) | final_k)
             # gas absorption along the flight to crossing k: layers fully
             # traversed before it (below lev_k going up / above going down),
-            # contracted on the MXU — no (B, Nz, Ng) materialization
+            # contracted by a matmul — no (B, Nz, Ng) materialization
             l_iota3 = jax.lax.broadcasted_iota(jnp.int32, (B, kx, nz), 2)
             mask_k = jnp.where(going_up[:, None, None],
                                l_iota3 < lev_c[:, :, None],
                                l_iota3 >= lev_c[:, :, None]).astype(_F)
             a_k = jnp.dot((mask_k * trav_b[:, None, :]).reshape(B * kx, nz),
-                          scene.kabs,
+                          scene.kabs, precision=_HI,
                           preferred_element_type=_F).reshape(B, kx, ng)
             w_k = (wsc[:, None, None] * jnp.exp(labs_bg[:, None, :] - a_k)
                    * tally_k[:, :, None].astype(_F))
@@ -772,7 +769,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 # escape probability exp(-OD), absorption over the FULL
                 # flight path (seg, not the collision-truncated trav)
                 a2_k = jnp.dot((mask_k * seg_b[:, None, :]).reshape(B * kx, nz),
-                               scene.kabs,
+                               scene.kabs, precision=_HI,
                                preferred_element_type=_F).reshape(B, kx, ng)
                 esc_k = thin[:, None] & lev_ok & pos_ok
                 w_k = w_k + ((wsc_pre * jnp.exp(-total_od))[:, None, None]
@@ -792,11 +789,11 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 # in-kernel spectral contraction: one scalar per crossing
                 # into a flat tally (see make_flight_kernel docstring)
                 f_k = jnp.einsum('bkl,lg->bkg', oh_k, flux_w,
-                                 preferred_element_type=_F)
+                                 precision=_HI, preferred_element_type=_F)
                 w_s = jnp.sum(w_k * f_k, axis=2)               # (B, kx)
                 flux = flux.at[pidx].add(w_s.reshape(-1))
             else:
-                # 8-fold row packing (see rtm.mc): 128-lane tally rows
+                # 8-fold row packing (see rtm.mc): 8*Ng-wide tally rows
                 sub = jax.nn.one_hot(pidx % 8, 8, dtype=_F)
                 upd = sub[:, :, None] * w_k.reshape(B * kx, 1, ng)
                 flux = flux.at[pidx // 8].add(upd.reshape(B * kx, 8 * ng))
@@ -871,12 +868,12 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                                    * -jnp.expm1(-ee_f)
                                    * thin[:, None, None].astype(_F))
                 absorbed = absorbed + jnp.einsum(
-                    'blg->lg', ab_l, preferred_element_type=_F)
+                    'blg->lg', ab_l, precision=_HI, preferred_element_type=_F)
             if nxf * nyf == 1:
                 chm = jnp.stack([~going_up & direct, ~going_up & ~direct,
                                  going_up], axis=0).astype(_F)  # (3, B)
                 part = jnp.einsum('cb,blg->lcg', chm, w_x,
-                                  preferred_element_type=_F)
+                                  precision=_HI, preferred_element_type=_F)
                 pad = flux.size // (8 * ng) * 8 - nlev * 3
                 flux = flux + jnp.concatenate(
                     [part.reshape(nlev * 3, ng),
@@ -893,7 +890,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 chi = jnp.where(going_up, 2, jnp.where(direct, 0, 1))[:, None]
                 pidx = (((ixc * nyf + iyc) * nlev + lev_iota) * 3
                         + chi).reshape(-1)
-                # 8-fold row packing (see rtm.mc): 128-lane tally rows
+                # 8-fold row packing (see rtm.mc): 8*Ng-wide tally rows
                 sub = jax.nn.one_hot(pidx % 8, 8, dtype=_F)
                 upd = sub[:, :, None] * w_x.reshape(B * nlev, 1, ng)
                 flux = flux.at[pidx // 8].add(upd.reshape(B * nlev, 8 * ng))
@@ -953,7 +950,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 z_lev[1:, None] - jnp.maximum(z[None, :], z_lev[:-1, None]),
                 0.0, dz_lay[:, None]) / mu_s
         big = jnp.dot(kop.T, jnp.concatenate([trav, sens_path], axis=0),
-                      preferred_element_type=_F)        # (2Ng+2, B)
+                      precision=_HI, preferred_element_type=_F)  # (2Ng+2, B)
         labs = labs - big[:ng + 1]
         tau_sens_abs = big[ng + 1:2 * ng + 1]           # (Ng, B)
         tau_sens_sig = big[2 * ng + 1]
@@ -984,11 +981,11 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             tau3_above = jnp.zeros(B, _F)
 
         sig_r = jnp.sum(oh_col * scene.sig_ray[:, None], axis=0)
-        # per-constituent aerosol extinctions at the collision layer (MXU
+        # per-constituent aerosol extinctions at the collision layer (one
         # contraction; each 1D constituent keeps its own ssa/phase row,
         # reference add_mca_1d_atm, mca_atm.py:105-139)
         sig_ac = jnp.dot(scene.sig_aer.T, oh_col,
-                         preferred_element_type=_F)        # (Na, B)
+                         precision=_HI, preferred_element_type=_F)  # (Na, B)
         sig_a = jnp.sum(sig_ac, axis=0)
         sig_real = sig_r + sig_a + ext_c
         accept = collided & (u[3] * sig_m < sig_real)
@@ -1048,22 +1045,6 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         else:
             mu_sc = ux * sx + uy * sy + uz * mu_s
 
-        if use_ppair and 'phase' not in ablate:
-            # ONE fused Pallas call for both per-event LUT lookups (eval at
-            # mu_sc with TMS row selection + inverse-CDF sample at u[:, 5])
-            from .pallas_phase import phase_pair
-            row_e = apf + jnp.where(direct, n_pf, 0)
-            pe_pair, mu_pair = phase_pair(
-                apf, row_e, mu_sc, u[5], ph_packed, ph_meta,
-                interpret=jax.default_backend() != 'tpu')
-        else:
-            pe_pair = mu_pair = None
-
-        def eval_sensor(mu):
-            if pe_pair is not None:
-                return jnp.where(apf == 0, 0.75 * (1.0 + mu * mu), pe_pair)
-            return phase_eval(apf, mu, first=direct)
-
         # ---------------- local estimates ----------------
         from .brdf import brdf_eval, brdf_sample_dir_weight
         if uniform_sfc:
@@ -1094,7 +1075,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 # point-estimator to a camera at (cam_x, cam_y, cam_z) with
                 # Z-Y-Z Euler pointing (MCARaTS Rad_phi/the/psi + Rad_zloc);
                 # geometry and mu_sc precomputed above
-                pval = eval_sensor(mu_sc)
+                pval = phase_eval(apf, mu_sc, first=direct)
                 if st.has_3d:
                     tau3_below = jnp.where(
                         l_col < st.iz3l, 0.0,
@@ -1144,7 +1125,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                 cam_py = jnp.clip(((0.5 + 0.5 * pr * jnp.sin(phi_c)) * nyr)
                                   .astype(jnp.int32), 0, nyr - 1)
             else:
-                pval = eval_sensor(mu_sc)
+                pval = phase_eval(apf, mu_sc, first=direct)
                 t_sens = jnp.exp(labs[:ng] - tau_sens_abs
                                  - (tau_sens_sig + tau3_above)[None, :])
                 c_vol = (wsc * ssa_ev * pval / (4.0 * jnp.pi * mu_s))[None, :] * t_sens
@@ -1168,7 +1149,7 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             if scalar_rad:
                 # in-kernel spectral contraction (see docstring): one scalar
                 # deposit per event instead of an (Ng,)-wide row
-                contrib = jnp.einsum('g,gb->b', rad_w, contrib)
+                contrib = jnp.einsum('g,gb->b', rad_w, contrib, precision=_HI)
             if nxr * nyr == 1:
                 if scalar_rad:
                     rad = rad + jnp.sum(contrib, keepdims=True)
@@ -1223,18 +1204,12 @@ def make_flight_kernel(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             ab_c = jnp.where(accept, wsc * (1.0 - ssa_ev), 0.0)    # (B,)
             absorbed = absorbed + jnp.einsum(
                 'lb,gb->lg', oh_col, jnp.exp(labs[:ng]) * ab_c[None, :],
-                preferred_element_type=_F)
+                precision=_HI, preferred_element_type=_F)
 
         # ---------------- direction updates ----------------
-        mu_new = mu_pair if mu_pair is not None else phase_sample(apf, u[5])
+        mu_new = phase_sample(apf, u[5])
         psi = u[6] * (2.0 * jnp.pi)
         ux_s, uy_s, uz_s = rotate(ux, uy, uz, mu_new, psi)
-        # NOTE: a hand-written Lambertian fast path here (skipping the
-        # Cox-Munk/LSRT lane math behind st.sfc_lambertian) measured a
-        # reproducible 1.07 ms/step REGRESSION (scripts/tpu_isolate_ab.py,
-        # 3.01 -> 4.08) — the extra (B,) transcendental chain splits XLA's
-        # fusion worse than the dead-branch BRDF math it removes.  Keep the
-        # generic call.
         bx, by, bz, bw = brdf_sample_dir_weight(
             jsfc_l, psfc_l, ux, uy, uz, u[5], u[6], u[9], u[10])
         ux = jnp.where(accept, ux_s, jnp.where(hit_sfc, bx, ux))
@@ -1364,9 +1339,8 @@ def _sort_lanes(c: FlightCarry, st: SceneStatic) -> FlightCarry:
     SolverConfig.sort_every).
 
     Adjacent lanes then gather adjacent voxel/majorant/surface rows and
-    deposit into adjacent image pixels — clustered HBM indices measured
-    ~3.7x cheaper than uniform-random ones (BENCH_NOTES round-3 cost
-    model).  Dead lanes sort to the END: the respawn block assigns them
+    deposit into adjacent image pixels.  Dead lanes sort to the END: the
+    respawn block assigns them
     sequential stratified cells (launch_coherent), so the new photons are
     born coherent too.
     """
@@ -1401,14 +1375,14 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     def cond_capped(c):
         return cond(c) & (c.step < max_steps)
 
-    # Drain-phase batch compaction (VERDICT r4 task 1c/3): once the photon
+    # Drain-phase batch compaction: once the photon
     # budget is launched, the while-loop runs at full batch width while the
     # surviving stragglers (random walks inside optically thick clouds)
     # dwindle — a fixed ~200-step median tail, with a heavy seed-dependent
-    # tail (1400-7400 steps observed at 4M-photon chunks, r5 sweep).
-    # ms/step scales linearly with batch (memory-bound), so compacting the
-    # survivors into an 8x (then 64x) smaller batch cuts the tail cost by
-    # the same factor.  Exact: lanes are permuted alive-first (lane_matrix
+    # tail (1400-7400 steps observed at 4M-photon chunks).  Where a step's
+    # cost scales with the batch, compacting the survivors into an 8x (then
+    # 64x) smaller batch cuts the tail cost by up to the same factor.
+    # Exact: lanes are permuted alive-first (lane_matrix
     # pack, f32-exact for this state) and continue with their own state;
     # the per-(step, lane) RNG streams never repeat because step increases
     # monotonically across stages.  Auto-disabled for configurations whose
@@ -1507,9 +1481,9 @@ def run_transport_flight(scene, static, cfg, n_photon, seed=0, rng_impl='rbg',
                          flux_w=None, rad_w=None):
     """Jitted entry point.
 
-    ``rng_impl='rbg'`` uses the TPU's fast RNG path (cheaper per deviate than
-    threefry inside the hot loop); pass 'threefry2x32' for cross-platform
-    bitwise determinism.  ``flux_w``: (Nz+1, Ng) spectral factors enabling
+    ``rng_impl`` names the ``jax.random`` key implementation; an
+    implementation JAX does not know raises.  'threefry2x32' gives
+    cross-platform bitwise determinism.  ``flux_w``: (Nz+1, Ng) spectral factors enabling
     the in-kernel spectral contraction of per-column flux tallies (the
     returned Tallies.flux then has a singleton g axis holding the
     factor-contracted physical tally).  ``rad_w``: (Ng,) spectral factors
@@ -1517,10 +1491,7 @@ def run_transport_flight(scene, static, cfg, n_photon, seed=0, rng_impl='rbg',
     singleton g axis).
     """
     fn = jax.jit(transport_flight, static_argnums=(1, 2))
-    try:
-        key = jax.random.key(seed, impl=rng_impl)
-    except Exception:
-        key = jax.random.key(seed)
+    key = jax.random.key(seed, impl=rng_impl)
     fw = None if flux_w is None else jnp.asarray(flux_w, _F)
     rw = None if rad_w is None else jnp.asarray(rad_w, _F)
     return fn(scene, static, cfg, jnp.asarray(int(n_photon), jnp.int32),

@@ -90,11 +90,9 @@ class SceneStatic:
     has_aer1d: bool
     ipa: bool = False         # independent-pixel mode (no horizontal transport)
     ns3: int = 1              # number of 3D constituents (cloud + 3D aerosols)
-    sfc_lambertian: bool = False  # every surface cell is Lambertian.
-    #                               Informational: a kernel fast path keyed on
-    #                               this measured a 1.07 ms/step REGRESSION
-    #                               (fusion split; scripts/tpu_isolate_ab.py),
-    #                               so the kernels keep the generic BRDF calls
+    sfc_lambertian: bool = False  # every surface cell is Lambertian
+    #                               (informational: the kernels keep the
+    #                               generic BRDF calls)
 
 
 def _cloud_to_grids(cld, pha, atm):
@@ -182,8 +180,7 @@ def build_scene(atm, abs_coef, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
 
     # phase table: default HG(0.85) for clouds + aerosol HG rows appended.
     # ``phase_bins`` overrides the 2048/2048 LUT resolution (n_u and n_m
-    # together) — the Pallas phase-pair cost is linear in table rows, so
-    # this is a rate/accuracy knob (BENCH_NOTES round-3).
+    # together) — a rate/accuracy knob.
     pb = {} if phase_bins is None else {'n_u': int(phase_bins),
                                         'n_m': int(phase_bins)}
     if pha is None:
@@ -267,10 +264,8 @@ def build_scene(atm, abs_coef, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     # Phase-row compaction: keep only the table rows this scene references
     # (row 0 = Rayleigh always; big Mie tables carry ~20 reff rows of which
     # a scene typically uses a fraction).  Exactly zero physics change —
-    # unused rows contribute nothing — but the Pallas phase-pair kernel's
-    # MXU one-hot cost is LINEAR in packed rows (rtm/pallas_phase.py), so
-    # dropping them is a direct per-step saving.  apf indices are remapped
-    # onto the compacted table.
+    # unused rows contribute nothing — and the tables the kernel gathers
+    # from shrink.  apf indices are remapped onto the compacted table.
     used = np.unique(np.concatenate([[0], apf3d.ravel(), aer_apf.ravel()]))
     if used.size < table.n_pf:
         remap = np.zeros(table.n_pf, dtype=np.int32)

@@ -11,12 +11,14 @@ examples/00_er3t_mca.py cases 01-06:
 
 All data is generated in-framework: the LES scene falls back to a synthetic
 broken-cloud field when no LES netCDF is given (the reference's les.nc is a
-separate download).  Run:
+separate download).  Figures need matplotlib; without it the results are
+logged and no figure is written.  Run:
 
     python examples/00_er3t_tpu.py 01 05 --photons 1e6
 """
 
 import argparse
+import importlib.util
 import os
 import sys
 
@@ -24,6 +26,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from er3t_tpu.common import setup_compile_cache
 from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.abs import abs_16g
 from er3t_tpu.pre.aer import aer_gen
@@ -31,10 +34,19 @@ from er3t_tpu.pre.cld import cld_gen_hem, cld_les
 from er3t_tpu.pre.pha import pha_mie_wc
 from er3t_tpu.rtm import solver
 from er3t_tpu.util.logger import get_logger
-from er3t_tpu.vis import plot_flux_profile, quicklook_radiance
 
 LOG = get_logger()
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'output')
+
+
+def _figure(name, *args, **kw):
+    """Write a figure with er3t_tpu.vis.<name> when matplotlib is
+    installed; otherwise say that none is written."""
+    if importlib.util.find_spec('matplotlib') is None:
+        LOG.framework('matplotlib not installed: no figure %s', kw['fname'])
+        return
+    from er3t_tpu import vis
+    getattr(vis, name)(*args, **kw)
 
 
 def _atm_cloudres():
@@ -56,9 +68,9 @@ def example_01_flux_clear_sky(photons, fname_les=None):
     ab = abs_16g(650.0, atm)
     res = solver.solve(atm=atm, abs_coef=ab, surface=0.03, target='flux',
                        solar_zenith_angle=30.0, photons=photons, n_run=3)
-    plot_flux_profile(res.data, atm.lev.altitude,
-                      fname=f'{OUT}/01_flux_clear_sky.png',
-                      title='Clear-sky flux profile, 650 nm')
+    _figure('plot_flux_profile', res.data, atm.lev.altitude,
+            fname=f'{OUT}/01_flux_clear_sky.png',
+            title='Clear-sky flux profile, 650 nm')
     LOG.framework('01: sfc f_down=%.3f W/m2/nm, TOA f_up=%.3f',
                   float(np.squeeze(res["f_down"])[0]),
                   float(np.squeeze(res["f_up"])[-1]))
@@ -71,9 +83,9 @@ def _flux_les(photons, fname_les, aer_1ds=(), aer_3ds=(), tag='02'):
     res = solver.solve(atm=atm, abs_coef=ab, cld=cld, aer_1ds=aer_1ds,
                        aer_3ds=aer_3ds, surface=0.03, target='flux',
                        solar_zenith_angle=30.0, photons=photons, n_run=3)
-    quicklook_radiance(np.squeeze(res['f_up'])[..., -1],
-                       fname=f'{OUT}/{tag}_fup_toa.png',
-                       title=f'{tag}: TOA upwelling flux')
+    _figure('quicklook_radiance', np.squeeze(res['f_up'])[..., -1],
+            fname=f'{OUT}/{tag}_fup_toa.png',
+            title=f'{tag}: TOA upwelling flux')
     LOG.framework('%s: domain-mean TOA f_up=%.3f W/m2/nm', tag,
                   float(np.squeeze(res['f_up'])[..., -1].mean()))
 
@@ -104,8 +116,8 @@ def example_05_rad_les_cloud_3d(photons, fname_les=None):
                        target='radiance', solar_zenith_angle=30.0,
                        solar_azimuth_angle=45.0, photons=photons, n_run=3,
                        forward_trunc_deg=5.0)
-    quicklook_radiance(res['rad'], fname=f'{OUT}/05_rad_les.png',
-                       title='Nadir radiance, 650 nm (Mie)')
+    _figure('quicklook_radiance', res['rad'], fname=f'{OUT}/05_rad_les.png',
+            title='Nadir radiance, 650 nm (Mie)')
     LOG.framework('05: radiance mean=%.4f max=%.4f W/m2/nm/sr',
                   res['rad'].mean(), res['rad'].max())
 
@@ -121,8 +133,8 @@ def example_06_rad_cld_gen_hem(photons, fname_les=None):
                        target='radiance', solar_zenith_angle=45.0,
                        solar_azimuth_angle=0.0, photons=photons, n_run=3,
                        forward_trunc_deg=5.0)
-    quicklook_radiance(res['rad'], fname=f'{OUT}/06_rad_hem.png',
-                       title='Hemispherical-cloud nadir radiance')
+    _figure('quicklook_radiance', res['rad'], fname=f'{OUT}/06_rad_hem.png',
+            title='Hemispherical-cloud nadir radiance')
     LOG.framework('06: radiance mean=%.4f', res['rad'].mean())
 
 
@@ -142,6 +154,7 @@ def main():
     p.add_argument('--photons', type=float, default=1e6)
     p.add_argument('--les', default=None, help='optional LES netCDF path')
     args = p.parse_args()
+    setup_compile_cache()
     os.makedirs(OUT, exist_ok=True)
     for case in args.cases:
         LOG.tic(case)

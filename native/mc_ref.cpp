@@ -4,7 +4,7 @@
 // reference toolbox (examples/00_er3t_bmk.py cross-checks two independent
 // solvers).  This is a deliberately straightforward serial implementation —
 // per-photon event loop, layer marching with null-collision sampling in the
-// 3D region — sharing no code or structure with the TPU kernels, so that
+// 3D region — sharing no code or structure with the JAX kernels, so that
 // agreement between the two is meaningful.
 //
 // Physics: plane-parallel layered atmosphere (Rayleigh scattering + per-g

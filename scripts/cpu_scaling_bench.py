@@ -17,11 +17,11 @@ Two efficiency numbers per point:
   (lanes per device) / photons launched — since round 5 measured as true
   lane-iterations (Tallies.lane_iters; drain compaction shrinks the drain
   batch, so steps*batch would overcount).  On real chips wall time is
-  steps * ms/step(B) with ms/step set by B (BENCH_NOTES cost model), so the
+  steps * ms/step(B) with ms/step set by B, so the
   work/photon ratio n=1 vs n=N IS the hardware-independent weak-scaling
   efficiency: it captures migration rounds, frozen-lane idling and drain
-  tails — everything but the ICI transfer itself (which is microseconds per
-  superstep window against ~4.7 ms/step of compute at production batch).
+  tails — everything but the interconnect transfer itself (not measured
+  here).
 
 Usage: python scripts/cpu_scaling_bench.py [--base-photons 150000]
 Slab-width study (VERDICT r4 task 2 — production-width slabs):

@@ -107,8 +107,8 @@ def test_finite_aperture():
 
 
 def test_camera_importance_launch_unbiased():
-    """cam_importance_sigma (measured variance dead end, BENCH_NOTES r5,
-    kept as an exact opt-in): the 50/50 mixture launch with importance
+    """cam_importance_sigma (measured variance dead end, kept as an
+    exact opt-in): the 50/50 mixture launch with importance
     weights must reproduce the uniform-launch image mean within MC noise,
     and the launch weights must average to ~1."""
     from er3t_tpu.pre.cld import cld_gen_hom

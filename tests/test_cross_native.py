@@ -1,4 +1,4 @@
-"""Cross-validation: TPU kernels vs the independent native C++ MC solver.
+"""Cross-validation: JAX kernels vs the independent native C++ MC solver.
 
 This is the framework's equivalent of the reference's MCARaTS-vs-libRadtran
 benchmark (examples/00_er3t_bmk.py): two solvers implemented independently
@@ -40,20 +40,20 @@ def test_flux_cross_validation(scene):
     n = 60000
     cfg = SolverConfig(target='flux', batch=1 << 12, flux_per_column=False)
     t = run_transport(scn, st, cfg, n, seed=21)
-    flux_tpu = np.asarray(t.flux)[0, 0] / int(t.n_launched)
+    flux_jax = np.asarray(t.flux)[0, 0] / int(t.n_launched)
     _, flux_nat, n_nat = mc_ref_run(scn, st, albedo=0.15, sza_deg=30.0,
                                     saa_deg=0.0, n_photon=n, seed=77,
                                     do_radiance=False)
     flux_nat /= n_nat
     w = ab.weight
     for ch, name in [(0, 'down-direct'), (2, 'up')]:
-        a = flux_tpu[:, ch, :] @ w
+        a = flux_jax[:, ch, :] @ w
         b = flux_nat[:, ch, :] @ w
         sel = a > 1e-3
         np.testing.assert_allclose(a[sel], b[sel], rtol=0.05,
                                    err_msg=f'{name} mismatch')
     # down-diffuse at surface
-    a = flux_tpu[0, 1, :] @ w
+    a = flux_jax[0, 1, :] @ w
     b = flux_nat[0, 1, :] @ w
     assert a == pytest.approx(b, rel=0.08)
 
@@ -63,14 +63,14 @@ def test_radiance_cross_validation(scene):
     n = 80000
     cfg = SolverConfig(target='radiance', batch=1 << 12)
     t = run_transport_flight(scn, st, cfg, n, seed=31)
-    rad_tpu = (np.asarray(t.rad) @ ab.weight) / int(t.n_launched)
+    rad_jax = (np.asarray(t.rad) @ ab.weight) / int(t.n_launched)
     rad_nat, _, n_nat = mc_ref_run(scn, st, albedo=0.15, sza_deg=30.0,
                                    saa_deg=0.0, n_photon=n, seed=99)
     rad_nat = (rad_nat @ ab.weight) / n_nat
     # domain means and cloudy/clear halves agree within MC noise
-    assert rad_tpu.mean() == pytest.approx(rad_nat.mean(), rel=0.04)
-    assert rad_tpu[:2].mean() == pytest.approx(rad_nat[:2].mean(), rel=0.06)
-    assert rad_tpu[2:].mean() == pytest.approx(rad_nat[2:].mean(), rel=0.06)
+    assert rad_jax.mean() == pytest.approx(rad_nat.mean(), rel=0.04)
+    assert rad_jax[:2].mean() == pytest.approx(rad_nat[:2].mean(), rel=0.06)
+    assert rad_jax[2:].mean() == pytest.approx(rad_nat[2:].mean(), rel=0.06)
 
 
 @pytest.mark.slow
@@ -81,24 +81,23 @@ def test_radiance_cross_validation_production(scene_production):
     running the same truncated tables with the same TMS first-order
     estimator (native/mc_ref.cpp phase_eval).  Accuracy-affecting kernel
     optimizations (truncation depth, table resolution, majorant clamping)
-    are gated here at a tolerance that can actually see ~3% bias; the
-    Pallas phase-pair path is separately gated by its 0.05% equivalence
-    test (tests/test_pallas_phase.py).  Reference protocol:
+    are gated here at a tolerance that can actually see ~3% bias.
+    Reference protocol:
     examples/00_er3t_bmk.py:470-579."""
     ab, scn, st = scene_production
-    n_tpu, n_nat = 1_200_000, 2_400_000
+    n_jax, n_nat = 1_200_000, 2_400_000
     cfg = SolverConfig(target='radiance', batch=1 << 13, tile_size=16,
                        qmc_launch=True, n_scat_max=600)
-    t = run_transport_flight(scn, st, cfg, n_tpu, seed=61)
-    rad_tpu = (np.asarray(t.rad) @ ab.weight) / int(t.n_launched)
+    t = run_transport_flight(scn, st, cfg, n_jax, seed=61)
+    rad_jax = (np.asarray(t.rad) @ ab.weight) / int(t.n_launched)
     rad_nat, _, n_n = mc_ref_run(scn, st, albedo=0.15, sza_deg=30.0,
                                  saa_deg=45.0, n_photon=n_nat, seed=88)
     rad_nat = (rad_nat @ ab.weight) / n_n
-    cloudy = rad_tpu > np.median(rad_tpu)      # same mask for both halves
-    assert rad_tpu.mean() == pytest.approx(rad_nat.mean(), rel=0.025)
-    assert rad_tpu[cloudy].mean() == pytest.approx(rad_nat[cloudy].mean(),
+    cloudy = rad_jax > np.median(rad_jax)      # same mask for both halves
+    assert rad_jax.mean() == pytest.approx(rad_nat.mean(), rel=0.025)
+    assert rad_jax[cloudy].mean() == pytest.approx(rad_nat[cloudy].mean(),
                                                    rel=0.03)
-    assert rad_tpu[~cloudy].mean() == pytest.approx(rad_nat[~cloudy].mean(),
+    assert rad_jax[~cloudy].mean() == pytest.approx(rad_nat[~cloudy].mean(),
                                                     rel=0.03)
 
 
@@ -130,9 +129,9 @@ def test_per_g_spectral_agreement(scene):
     n = 60000
     cfg = SolverConfig(target='flux', batch=1 << 12, flux_per_column=False)
     t = run_transport(scn, st, cfg, n, seed=41)
-    f_tpu = np.asarray(t.flux)[0, 0, 0, 0, :] / int(t.n_launched)  # sfc direct
+    f_jax = np.asarray(t.flux)[0, 0, 0, 0, :] / int(t.n_launched)  # sfc direct
     _, flux_nat, n_nat = mc_ref_run(scn, st, albedo=0.15, sza_deg=30.0,
                                     saa_deg=0.0, n_photon=n, seed=55,
                                     do_radiance=False)
     f_nat = flux_nat[0, 0, :] / n_nat
-    np.testing.assert_allclose(f_tpu, f_nat, rtol=0.05)
+    np.testing.assert_allclose(f_jax, f_nat, rtol=0.05)

@@ -54,7 +54,7 @@ def test_eval_rows_bin_averaged(mie):
 def test_truncated_radiance_matches_mild_truncation(mie):
     """20-deg truncation + TMS agrees with 5-deg truncation within MC noise
     on a broken-cloud Mie radiance scene (both are low-variance estimators;
-    the untruncated estimator is heavy-tailed — see BENCH_NOTES.md)."""
+    the untruncated estimator is heavy-tailed)."""
     atm = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
                                      np.arange(3.0, 20.1, 2.0)]))
     ab = abs_synthetic(650.0, atm)
